@@ -1,11 +1,12 @@
-"""parasail_rs_tpu: a TPU-native pairwise sequence-alignment engine.
+"""parasail_rs_tpu: a batched pairwise sequence-alignment engine in JAX.
 
 A from-scratch re-design of the capability surface of ``parasail-rs``
-(safe wrapper over parasail's SIMD C library) for TPU hardware:
+(safe wrapper over parasail's SIMD C library) for accelerators:
 
 - the affine-gap DP fill (global / semi-global / local, stats, tables,
-  rowcol, trace) runs as batched anti-diagonal wavefront kernels on the
-  TPU vector unit (Pallas) with an XLA fallback path;
+  rowcol, trace) runs batched on the device: a Pallas GPU kernel with
+  one pair per thread for short pairs, and an XLA anti-diagonal
+  wavefront for every output class and shape;
 - query profiles are device-resident tensors; substitution matrices are a
   NumPy registry;
 - scale-out is data-parallel sharding over a ``jax.sharding.Mesh`` plus a

@@ -1,7 +1,7 @@
 """Length-binning batch scheduler.
 
 The reference processes one pair per call and leaves batching to user
-threads (SURVEY.md §2.3).  On TPU the cost model inverts: every kernel
+threads (SURVEY.md §2.3).  On the device the cost model inverts: every kernel
 launch processes a dense (B, Qp, Rp) tile, so mixed-length workloads
 (BASELINE.json config 5: 100bp-10kbp) must be binned by padded shape —
 padding a 100bp pair into a 10kbp tile wastes 99.99% of the lanes.
@@ -42,9 +42,9 @@ def plan_bins(
     Args:
       qlens, rlens: per-pair sequence lengths.
       max_cells: cap on B*Qp*Rp per launch (device memory / latency bound).
-      lane_quantum: round bin sizes up to this multiple where possible by
-        merging (the Pallas kernel wants multiples of 128 lanes; smaller
-        remainders still dispatch, padded by the engine).
+      lane_quantum: the smallest launch worth making: bins are never cut
+        below this many pairs by ``max_cells`` (smaller remainders still
+        dispatch).
 
     Returns bins covering every index exactly once.
     """

@@ -144,7 +144,7 @@ class SolutionWidth(enum.Enum):
     """Narrow-integer solution width knob (reference: prelude.rs:9-15).
 
     SAT runs the 8-bit kernel first and promotes saturated pairs to wider
-    widths (the TPU replacement for parasail's 8->16 retry ladder).
+    widths (the replacement for parasail's 8->16 retry ladder).
     """
 
     SAT = "sat"
@@ -157,8 +157,7 @@ class SolutionWidth(enum.Enum):
 class InstructionSet(enum.Enum):
     """CPU ISA knob kept for API parity (reference: prelude.rs:18-25).
 
-    On TPU there is a single vector unit, so every value maps to the same
-    kernel layout; the knob is accepted and recorded but does not change
+    The device has one kernel layout for every value, so the knob is accepted and recorded but does not change
     dispatch.
     """
 

@@ -1,15 +1,15 @@
-"""Multi-chip / multi-host scale-out.
+"""Multi-device / multi-host scale-out.
 
 The reference is single-process (SURVEY.md §2.3) — its only parallelism
-is SIMD lanes plus user threads over Send+Sync handles.  This package is
-the designed-fresh TPU scale-out: pair batches are sharded data-parallel
-over a ``jax.sharding.Mesh``, profiles/matrices are replicated, and
-results come back per-shard; XLA inserts the collectives.
+is SIMD lanes plus user threads over Send+Sync handles.  This package
+shards pair batches data-parallel over a ``jax.sharding.Mesh``
+(profiles/matrices replicated, results returned per shard; XLA inserts
+the collectives), and splits one long pair across devices
+sequence-parallel (``seqpar_align``).
 """
 
 from .sharded import make_device_mesh, sharded_align
 from .seqpar import seqpar_align, seqpar_cigars
-from .seqpar_scan import seqpar_align_scan, seqpar_scan_fits
 
-__all__ = ["make_device_mesh", "seqpar_align", "seqpar_align_scan",
-           "seqpar_cigars", "seqpar_scan_fits", "sharded_align"]
+__all__ = ["make_device_mesh", "seqpar_align", "seqpar_cigars",
+           "sharded_align"]

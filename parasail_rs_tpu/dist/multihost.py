@@ -1,12 +1,11 @@
 """Multi-host process-group setup and cross-host result gathering.
 
-The reference has no distributed layer at all (SURVEY.md §2.3/§5.8); the
-TPU-native story is: one Python process per host, connected with
-``jax.distributed.initialize``, a global mesh spanning every chip in the
-slice, pair batches sharded over the global ``data`` axis (each host
-feeds its addressable shard), and scores/ends gathered with
-``multihost_utils``.  ICI carries in-slice collectives; DCN only sees
-the batch scatter / result gather at the host boundary.
+The reference has no distributed layer at all (SURVEY.md §2.3/§5.8);
+here: one Python process per host, connected with
+``jax.distributed.initialize``, a global mesh spanning every device,
+pair batches sharded over the global ``data`` axis (each host feeds its
+addressable shard), and scores/ends gathered with ``multihost_utils``.
+Only the batch scatter / result gather cross the host boundary.
 """
 
 from __future__ import annotations
@@ -19,9 +18,9 @@ def initialize(coordinator_address: str | None = None,
                process_id: int | None = None) -> None:
     """Join (or bootstrap) the multi-host process group.
 
-    On TPU pods with standard env metadata every argument is
-    auto-detected; for CPU-based simulation pass all three explicitly
-    (see tests/test_multihost.py).
+    Where the cluster environment describes the process group every
+    argument is auto-detected; otherwise (a single GPU host, or CPU
+    simulation) pass all three explicitly (see tests/test_multihost.py).
     """
     import jax
 
@@ -33,7 +32,7 @@ def initialize(coordinator_address: str | None = None,
 
 
 def global_mesh(axis: str = "data"):
-    """A 1-D mesh over every device in the slice (all hosts)."""
+    """A 1-D mesh over every device (all hosts)."""
     import jax
 
     return jax.make_mesh((len(jax.devices()),), (axis,))
@@ -66,21 +65,21 @@ def global_to_host_local(mesh, out: dict):
 
 
 def align_global(mesh, profile, qidx, ridx, qlen, rlen, *,
-                 open_, ext, mode, free, outputs, width="32", route="auto"):
+                 open_, ext, mode, free, outputs, width="32", route="auto",
+                 interpret=False):
     """Multi-host batched alignment: host-local shards in, full results
     out on every host.
 
-    Routes through the same kernel selection as the single-host engine
-    (dist.sharded.plan_sharded_route): the Pallas scan kernel on TPU, the
-    XLA wavefront otherwise.  Each host's local batch is padded so every
-    device shard meets the chosen kernel's lane granularity; padding rows
-    are dropped from the gathered results.
+    Routes through the same decision as the single-host engine
+    (dist.sharded.plan_sharded_route).  Each host's local batch is padded
+    to a multiple of its device count; padding rows are dropped from the
+    gathered results.  ``interpret=True`` is for tests only.
     """
     import jax
     from jax.experimental import multihost_utils
     from jax.sharding import PartitionSpec as P
 
-    from .sharded import LANES, _sharded_fn, plan_sharded_route
+    from .sharded import _sharded_fn, plan_sharded_route
 
     profile = np.asarray(profile)
     qidx = np.asarray(qidx)
@@ -94,13 +93,8 @@ def align_global(mesh, profile, qidx, ridx, qlen, rlen, *,
     nproc = jax.process_count()
 
     if route == "auto":
-        unit = dloc * LANES
-        shard_b = (B_local + unit - 1) // unit * unit // dloc
-        route = plan_sharded_route(
-            outputs=outputs, gap_open=int(open_), gap_extend=int(ext),
-            score_values=profile, Qp=Qp, Rp=Rp, shard_batch=shard_b)
-    unit = dloc * LANES if route == "scan" else dloc
-    Bp_local = (B_local + unit - 1) // unit * unit
+        route = plan_sharded_route(outputs=outputs, Qp=Qp, Rp=Rp)
+    Bp_local = (B_local + dloc - 1) // dloc * dloc
 
     def padb(x):
         if Bp_local == x.shape[0]:
@@ -119,7 +113,6 @@ def align_global(mesh, profile, qidx, ridx, qlen, rlen, *,
     g_qlen = to_global(padb(qlen), P(axis))
     g_rlen = to_global(padb(rlen), P(axis))
 
-    interpret = jax.default_backend() != "tpu"
     fn = _sharded_fn(mesh, mode, tuple(free), outputs, width, shared,
                      route, interpret)
     out = fn(g_profile, g_qidx, g_ridx, g_qlen, g_rlen,

@@ -6,24 +6,24 @@ device mesh, the query axis is cut into chunks, and the fill proceeds as
 a pipelined wavefront over (query-chunk x device) tiles — device d works
 on query-chunk t at super-step s = t + d.  Two state flows:
 
-- rightward (device -> right neighbor, ``lax.ppermute`` over ICI): the
+- rightward (device -> right neighbor, ``lax.ppermute``): the
   final (H, F) column of the device's chunk for the current query-chunk
   rows, plus the above-row diagonal cell — the halo the neighbor's first
   column consumes;
 - downward (device-local): per column, the last-row H and the running
   prefix-max PM[j] = max_{k<r0} (Htemp[k,j] - open + e_ext*k) with
   e_ext = min(open, ext), which seeds the vertical-gap prefix scan of
-  the next query-chunk (the same scan trick as ops/scan_kernel.py —
-  exact for any penalties on value outputs; stats need strict
-  gap_open > gap_extend).
+  the next query-chunk.  Golden's E recurrence unrolls exactly to that
+  prefix form with slope min(open, ext), so value outputs are exact for
+  any penalties; stats need strict gap_open > gap_extend.
 
 The reference's closest feature is the scalar banded NW offered for
 "large sequences" (src/aligner/mod.rs:454-489); there is no distributed
 analog to port — this is the designed-fresh long-sequence story.
 
-Substitution scores are produced per tile by an on-the-fly one-hot
-matmul (no global substitution tensor is ever materialized), so memory
-per device is O(Qp + C·Qc), independent of the full Qp x Rp problem.
+Substitution scores are gathered per tile from the profile (no global
+substitution tensor is ever materialized), so memory per device is
+O(Qp + C·Qc), independent of the full Qp x Rp problem.
 """
 
 from __future__ import annotations
@@ -71,8 +71,8 @@ def _prefix_max_exclusive(a, ii, seed):
 
 
 def _prefix_argmax_exclusive(a, payloads, ii, seed, seed_payloads):
-    """Payload-carrying exclusive prefix max (ops/scan_kernel.py twin);
-    ties prefer the larger origin row, matching the golden oracle."""
+    """Payload-carrying exclusive prefix max; ties prefer the larger
+    origin row, matching the golden oracle."""
     neg = NEG_INF32
     x = jnp.where(ii == 0, seed, jnp.roll(a, 1, axis=0))
     ps = [jnp.where(ii == 0, sp, jnp.roll(p, 1, axis=0))
@@ -96,9 +96,9 @@ def seqpar_align(*args, **kw):
     outputs = kw.get("outputs", "score")
     if open_ is not None and ext is not None:
         if outputs == "stats" and int(open_) <= int(ext):
-            # stats payloads share the scan kernel's tie contract
-            # (strict open > ext); silently wrong accumulators are worse
-            # than an error (single-chip configs route to the wavefront)
+            # the prefix-scan payloads cannot follow golden's gap
+            # restart ties at open <= ext; silently wrong accumulators
+            # are worse than an error (single-chip configs are exact)
             raise ValueError(
                 f"sequence-parallel stats require gap_open > gap_extend "
                 f"(payload tie semantics); got {int(open_)}/{int(ext)}")
@@ -158,7 +158,8 @@ def _seqpar_align_jit(
     open_ = jnp.asarray(open_, I32)
     ext = jnp.asarray(ext, I32)
     # vertical prefix-scan slope — min(open, ext) is the exact closed
-    # form of golden's E recurrence for any penalties (scan_kernel.py)
+    # form of golden's E recurrence for any penalties: when open < ext,
+    # re-opening a length-1 gap through H beats extending at every step
     e_ext = jnp.minimum(ext, open_)
 
     def top_b(jg):  # bordered H[0][jg]
@@ -173,8 +174,6 @@ def _seqpar_align_jit(
         # ridx_sh: (C, B) — this device's column chunk.
         d = jax.lax.axis_index(axis)
         jg0 = d * C                                   # first global column
-        onehot = jax.nn.one_hot(ridx_sh, A, dtype=jnp.float32,
-                                axis=1)               # (C, A, B)
         iic = jax.lax.broadcasted_iota(I32, (Qc, B), 0)
         nstat = 9 if want_stats else 0
 
@@ -194,11 +193,11 @@ def _seqpar_align_jit(
             tc = jnp.clip(t, 0, S - 1)
             r0 = tc * Qc                              # first global row
             prof_c = jax.lax.dynamic_slice(
-                profile, (r0, 0, 0), (Qc, A, B)).astype(jnp.float32)
-            # (C, Qc, B) substitution tile via one-hot MXU matmul.
-            stile = jnp.einsum(
-                "cab,qab->cqb", onehot, prof_c,
-                preferred_element_type=jnp.float32).astype(I32)
+                profile, (r0, 0, 0), (Qc, A, B))
+            # (C, Qc, B) substitution tile: an exact integer gather of
+            # prof_c[q, ridx[c, b], b]
+            stile = jnp.take_along_axis(
+                prof_c[None], ridx_sh[:, None, None, :], axis=2)[:, :, 0]
 
             # Left edge of this device's sweep: halo from the left
             # neighbor, or the bordered boundary for device 0.
@@ -245,8 +244,7 @@ def _seqpar_align_jit(
                 if local:
                     htemp = jnp.maximum(htemp, 0)
                 # A-domain slope min(open, ext): exact closed form of
-                # golden's E recurrence for ANY penalties (see
-                # ops/scan_kernel.py kernel-body comment)
+                # golden's E recurrence for ANY penalties
                 a = htemp - open_ + e_ext * ig
                 seed = jnp.where(t == 0, top_b(jg + 1) - open_ - e_ext,
                                  dPM_j)
@@ -289,9 +287,8 @@ def _seqpar_align_jit(
                 H = jnp.maximum(htemp, E)
                 newPM = jnp.maximum(seed, a.max(axis=0))
                 if want_trace:
-                    # Flag emission, bit-identical to ops/scan_kernel.py:
-                    # the same Gotoh comparisons over the same E/F/H
-                    # columns; E of the row above comes from the carried
+                    # Flag emission, bit-identical to golden: the same
+                    # Gotoh comparisons over the same E/F/H columns; E of the row above comes from the carried
                     # per-column down state across query chunks.
                     fflag = jnp.where(from_open_f, TRACE_DIAG_F,
                                       TRACE_DEL_F)

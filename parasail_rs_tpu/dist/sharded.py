@@ -1,39 +1,35 @@
 """Data-parallel sharded alignment over a device mesh.
 
-The TPU-native replacement for the reference's thread-level parallelism
+The replacement for the reference's thread-level parallelism
 (SURVEY.md §2.3: ``unsafe Send+Sync`` + ``Arc`` sharing,
 src/aligner/mod.rs:533-535): a pair batch is sharded over the ``data``
-axis of a 1-D mesh, every chip runs the same kernel on its shard via
+axis of a 1-D mesh, every device runs the same fill on its shard via
 ``shard_map``, and per-pair outputs come back sharded the same way.
 Profiles and matrices are tiny and replicated.
 
-Routing matches the single-chip engine (engine/dispatch.py): the Pallas
-prefix-scan kernel is the production path on TPU — the reference's hot
-loop (src/aligner/mod.rs:397-452) sharded, not the debug fallback — with
-the XLA wavefront kernel taking over for configurations outside the scan
-kernel's exactness/memory envelope.
+Routing is the single-device engine's decision
+(engine.dispatch.choose_route), per shard: the GPU kernel
+(ops/gpu_fill.py) where it applies, the XLA wavefront otherwise.  The
+cards of one host reach each other all to all, so the mesh is a plain
+1-D list of ``jax.devices()``.
 
 Multi-host: ``jax.distributed.initialize`` (driven by the caller) makes
 ``jax.devices()`` span hosts; ``sharded_align`` is unchanged — the mesh
-covers the full slice and DCN only carries the batch scatter / result
-gather at the host boundary.
+covers every device and only the batch scatter / result gather cross
+the host boundary.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ..ops.scan_kernel import LANES, scan_fits, scan_score_align
 from ..ops.wavefront import wavefront_align
-
-_STATS_OUTPUTS = ("stats", "stats_table", "stats_rowcol")
 
 
 def make_device_mesh(n_devices: int | None = None) -> Mesh:
@@ -44,88 +40,41 @@ def make_device_mesh(n_devices: int | None = None) -> Mesh:
     return jax.make_mesh((len(devs),), ("data",), devices=devs)
 
 
-def plan_sharded_route(
-    *, outputs: str, gap_open: int, gap_extend: int,
-    score_values, Qp: int, Rp: int, shard_batch: int,
-) -> str:
-    """Pick "scan" / "trace_walk" (Pallas) or "wavefront" for a sharded
-    batch — the same gates as engine.dispatch.plan_route, per shard.
+def plan_sharded_route(*, outputs: str, Qp: int, Rp: int,
+                       platform: str | None = None) -> str:
+    """"kernel" or "wavefront" for a sharded batch: the engine's own
+    route decision (engine.dispatch.choose_route)."""
+    from ..engine.dispatch import choose_route
 
-    "trace_walk" mirrors the single-chip route for stats at
-    gap_open <= gap_extend: each shard runs the trace kernel and counts
-    matches/similar/length along the device traceback walk
-    (ops/trace_walk) — entirely inside shard_map, flags never leave the
-    shard's device.
-    """
-    vals = np.asarray(score_values)
-    if outputs in _STATS_OUTPUTS and gap_open <= gap_extend:
-        from ..engine import dispatch as _dispatch
-
-        if (outputs == "stats"
-                and not (vals.min() < -128 or vals.max() > 127)
-                and scan_fits(Qp, Rp, "trace", A=int(vals.shape[-1]))
-                and Qp + Rp <= _dispatch.WAVEFRONT_TPU_MAX_SPAN
-                and shard_batch * Qp * Rp <= 2 << 30
-                and (os.environ.get("PT_FORCE_PALLAS") == "1"
-                     or jax.default_backend() == "tpu")):
-            return "trace_walk"
-        return "wavefront"
-    if vals.min() < -128 or vals.max() > 127:
-        return "wavefront"
-    from ..ops.scan_kernel import _gsel, _npk
-
-    A = int(np.asarray(score_values).shape[-1])
-    if not scan_fits(Qp, Rp, outputs, A=A):
-        return "wavefront"
-    cell_bytes = shard_batch * Qp * Rp
-    in_bytes = shard_batch * Qp * _npk(A) * 4 if _gsel(A) else cell_bytes
-    out_bytes = {"trace": 2, "table": 4, "stats_table": 16}.get(
-        outputs, 0) * cell_bytes
-    if in_bytes + out_bytes > 2 << 30:
-        return "wavefront"
-    if os.environ.get("PT_FORCE_PALLAS") == "1":
-        return "scan"
-    return "scan" if jax.default_backend() == "tpu" else "wavefront"
+    return choose_route(outputs, Qp, Rp, platform=platform)[0]
 
 
 @functools.lru_cache(maxsize=128)
 def _sharded_fn(mesh: Mesh, mode: str, free, outputs: str, width: str,
-                shared: bool, kernel: str, interpret: bool,
-                hmax_bound=None):
-    """jit(shard_map(kernel)) for one (mesh, config) combination, cached so
+                shared: bool, kernel: str, interpret: bool):
+    """jit(shard_map(fill)) for one (mesh, config) combination, cached so
     repeated dispatches reuse the compiled executable."""
+    from ..ops.gpu_fill import dp_fill, scalar_names
     from .seqpar import _shard_map
 
     axis = mesh.axis_names[0]
-    want_stats = outputs in _STATS_OUTPUTS
 
     def local(profile, qidx, ridx, qlen, rlen, open_, ext):
-        if kernel == "trace_walk":
-            # stats at open <= ext: trace kernel + device walk per shard
-            # (the single-chip route under shard_map; see
-            # engine.dispatch._execute_stats_via_walk)
-            from ..ops.trace_walk import _walk_impl
-
-            out = scan_score_align(
-                profile, ridx, qlen, rlen, None,
-                open_=open_, ext=ext, mode=mode, free=free, width=width,
-                outputs="trace", interpret=interpret,
-                hmax_bound=hmax_bound)
-            trace = out.pop("trace_table")
-            Qp, Rp = trace.shape[1], trace.shape[2]
-            is_local = mode == "sw"
-            qb, _qe, db, _de = (True,) * 4 if is_local else free
-            m, s, ln = _walk_impl(
-                trace, qidx, ridx, out["end_query"], out["end_ref"],
-                Qp, Rp, is_local, qb, db, sub=profile)
-            out.update(matches=m, similar=s, length=ln)
+        if kernel == "kernel":
+            Bq, Qp, A = profile.shape
+            qoff = (jnp.arange(Bq, dtype=jnp.int32)[:, None] * Qp
+                    + jnp.arange(Qp, dtype=jnp.int32)[None, :]) * A
+            packed, big = dp_fill(
+                profile, qoff, qidx, ridx, qlen, rlen,
+                jnp.stack([open_, ext]), mode=mode, free=free,
+                outputs=outputs, width=width, interpret=interpret)
+            names = scalar_names(width, outputs == "stats")
+            out = {k: packed[i] for i, k in enumerate(names)}
+            for k in ("saturated", "promoted"):
+                if k in out:
+                    out[k] = out[k] != 0
+            out.update(big)
             return out
-        if kernel == "scan":
-            return scan_score_align(
-                profile, ridx, qlen, rlen, qidx if want_stats else None,
-                open_=open_, ext=ext, mode=mode, free=free, width=width,
-                outputs=outputs, interpret=interpret,
-                hmax_bound=hmax_bound)
         return wavefront_align(
             profile, qidx, ridx, qlen, rlen, open_=open_, ext=ext,
             mode=mode, free=free, outputs=outputs, width=width)
@@ -144,17 +93,18 @@ def sharded_align(
     profile, qidx, ridx, qlen, rlen,
     *,
     open_, ext, mode, free, outputs, width="32", route="auto",
+    interpret=False,
 ):
-    """Run the production alignment kernel with the batch sharded over
+    """Run the production alignment fill with the batch sharded over
     ``mesh``'s first axis.
 
-    ``route``: "auto" picks the Pallas scan kernel whenever the engine's
-    own dispatch gates would (TPU backend or PT_FORCE_PALLAS=1), else the
-    XLA wavefront; "scan"/"wavefront" force a kernel.  The batch is padded
-    internally to whatever the route needs (a multiple of devices, and of
-    128 lanes per device for the scan kernel); outputs are sliced back to
-    the true batch.  Returns the same dict as :func:`wavefront_align`,
-    with every output sharded over the mesh axis.
+    ``route``: "auto" takes the engine's own route decision;
+    "kernel"/"wavefront" force one.  ``interpret=True`` (tests only)
+    runs the kernel through the Pallas interpreter.  The batch is padded
+    internally to a multiple of the device count; outputs are sliced
+    back to the true batch.  Returns the same dict as
+    :func:`wavefront_align`, with every output sharded over the mesh
+    axis.
 
     ``profile``/``qidx`` with a leading dim of 1 (profile reuse — one
     query against many references) are replicated across the mesh rather
@@ -172,13 +122,8 @@ def sharded_align(
     shared = profile.shape[0] == 1
 
     if route == "auto":
-        unit = ndev * LANES
-        shard_b = (B + unit - 1) // unit * unit // ndev
-        route = plan_sharded_route(
-            outputs=outputs, gap_open=int(open_), gap_extend=int(ext),
-            score_values=profile, Qp=Qp, Rp=Rp, shard_batch=shard_b)
-    unit = ndev * LANES if route in ("scan", "trace_walk") else ndev
-    Bp = (B + unit - 1) // unit * unit
+        route = plan_sharded_route(outputs=outputs, Qp=Qp, Rp=Rp)
+    Bp = (B + ndev - 1) // ndev * ndev
 
     def padb(x):
         if Bp == x.shape[0]:
@@ -192,15 +137,8 @@ def sharded_align(
         return jax.device_put(jnp.asarray(x), rep if is_shared else
                               batch_sharding)
 
-    interpret = jax.default_backend() != "tpu"
-    hb = None
-    if route in ("scan", "trace_walk"):
-        # packed-candidate gate (see engine.dispatch._hmax_bound)
-        smax = int(max(abs(int(profile.min())), abs(int(profile.max()))))
-        raw = (smax + int(open_) + int(ext)) * (Qp + Rp)
-        hb = 1 << max(1, raw - 1).bit_length()
     fn = _sharded_fn(mesh, mode, tuple(free), outputs, width, shared,
-                     route, interpret, hb)
+                     route, interpret)
     out = fn(
         put(profile if shared else padb(profile), shared),
         put(qidx if shared else padb(qidx), shared),

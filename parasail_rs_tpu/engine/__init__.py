@@ -1,9 +1,9 @@
 """User-facing engine: builder, aligner, profiles, and result objects.
 
-TPU-native re-design of the reference's L2/L3 layers
+Re-design of the reference's L2/L3 layers
 (reference: src/aligner/mod.rs, src/alignment/mod.rs, src/profile/mod.rs):
 configuration resolves to a typed kernel key instead of a C function-name
-string, execution is a batched jitted wavefront dispatch instead of an FFI
+string, execution is a batched jitted device dispatch instead of an FFI
 call, and results are host numpy views instead of raw-pointer facades.
 """
 

@@ -2,11 +2,11 @@
 
 The reference pre-computes a striped SIMD query profile once and reuses it
 across many references (src/profile/mod.rs; usage pattern README.md:38-63).
-On TPU the profile is a dense ``(query_len, alphabet)`` int32 tensor — the
+Here the profile is a dense ``(query_len, alphabet)`` int32 tensor — the
 row ``P[i, :]`` holds the substitution scores of query position ``i``
-against every alphabet index, which the wavefront kernel gathers by
+against every alphabet index, which the device fills gather by
 reference index.  The ISA dimension of the reference's 50 constructor
-variants (src/profile/mod.rs:113-277) collapses on TPU; the
+variants (src/profile/mod.rs:113-277) collapses here; the
 ``InstructionSet`` knob is accepted and recorded for API parity only.
 """
 
@@ -45,7 +45,7 @@ class Profile:
     """Pre-computed query profile (reference: src/profile/mod.rs:281-335).
 
     Carries the reference's public fields (``use_stats``, ``query_len``)
-    plus the device-ready tensors the TPU kernels consume.
+    plus the device-ready tensors the device fills consume.
     """
 
     query: bytes = b""
@@ -113,8 +113,8 @@ class ProfileBuilder:
 
     Defaults mirror the reference: no stats, ``SolutionWidth.SAT``,
     ``InstructionSet.BEST``.  The 50-arm (stats x ISA x width) constructor
-    match of the reference collapses to one dense-tensor constructor on
-    TPU; width and ISA are recorded on the built profile.
+    match of the reference collapses to one dense-tensor constructor;
+    width and ISA are recorded on the built profile.
     """
 
     def __init__(self, query: bytes | str, matrix: Matrix):

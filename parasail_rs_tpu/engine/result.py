@@ -67,7 +67,7 @@ class Table:
         return int(self._data[-1, -1])
 
     def as_array(self) -> np.ndarray:
-        """The underlying (rows, cols) array (TPU-native extra)."""
+        """The underlying (rows, cols) array (an extension of the reference API)."""
         return self._data
 
     def __str__(self) -> str:  # reference Display: table.rs:110-125
@@ -209,7 +209,7 @@ class Alignment:
     @property
     def matrix_approximate(self) -> bool:
         """True when this result was scored with a synthesised builtin
-        matrix rather than verbatim NCBI data (TPU-native extra; see
+        matrix rather than verbatim NCBI data (an extension of the reference API; see
         matrices.ncbi for how to register exact tables)."""
         return bool(getattr(self.matrix, "approximate", False))
 

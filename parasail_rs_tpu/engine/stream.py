@@ -1,8 +1,7 @@
 """Streaming executor: production serving over an unbounded pair stream.
 
 The reference's serving story is one blocking FFI call per pair plus
-user-managed threads (SURVEY.md §2.3); the TPU-native story is a
-pipeline: submissions accumulate into length-binned buckets, each full
+user-managed threads (SURVEY.md §2.3); here it is a pipeline: submissions accumulate into length-binned buckets, each full
 bucket dispatches ONE kernel launch asynchronously (jax dispatch
 returns device futures immediately), and a background fetch thread
 resolves buckets as the device finishes them — host packing of the next
@@ -24,7 +23,6 @@ from __future__ import annotations
 
 import queue
 import threading
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -199,8 +197,7 @@ class StreamingAligner:
                             or bucket.size >= cell_cap):
                         # defer the launch: every full bucket of this
                         # bulk submit shares ONE concatenated plane
-                        # upload below (the dev channel charges a fixed
-                        # per-h2d cost; N buckets paid it N times)
+                        # upload below instead of one per bucket
                         full.append(self._buckets.pop(key))
             self._launch_group(full)
         return handles
@@ -267,10 +264,8 @@ class StreamingAligner:
             # Micro-batch: when MORE buckets are already dispatched
             # (burst submits, flush), wait briefly for their queue
             # entries and fetch the whole group with ONE fused
-            # device->host transfer (dispatch.fetch_all).  The degraded
-            # dev channel charges a fixed ~25-65 ms blocking RTT per
-            # transfer regardless of size, so a 2-bucket flush pays one
-            # RTT instead of two (~2x on cfg7's fetch stage); with a
+            # device->host transfer (dispatch.fetch_all), so a 2-bucket
+            # flush pays one blocking transfer instead of two; with a
             # single in-flight bucket this never delays its fetch.
             items = [item]
             while len(items) < 16:

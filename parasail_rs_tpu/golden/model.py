@@ -1,6 +1,6 @@
 """Golden scalar model: affine-gap (Gotoh) pairwise alignment in pure NumPy.
 
-This is the semantic oracle for the whole framework: the Pallas/XLA kernels
+This is the semantic oracle for the whole framework: the GPU/XLA kernels
 must produce bit-identical scores, stats, tables, trace flags, and CIGARs to
 this model.  It encodes the reference's capability surface — global (nw),
 semi-global with the free-end variant grammar, and local (sw) — with the
@@ -403,7 +403,7 @@ def banded_nw_fill(sub: np.ndarray, open_: int, ext: int, bw: int) -> int:
     The reference's parasail_nw_banded is likewise a non-vectorized scalar
     kernel (doc: src/aligner/mod.rs:454-456); here each DP row updates as
     a numpy slice with out-of-band cells pinned at -inf.  Oracle only —
-    the production banded route is the Pallas/XLA kernels' banded mode.
+    the production banded route is the XLA wavefront's banded mode.
     """
     qlen, rlen = sub.shape
     NEG = -(10 ** 9)

@@ -83,13 +83,15 @@ def _build() -> str | None:
 
 def _load():
     global _lib, _tried
+    if _tried:
+        return _lib
+    # build outside the lock (atomic rename; see native/walker.py)
+    off = os.environ.get("PT_NATIVE_PACK", "1") == "0"
+    path = None if off else _build()
     with _lock:
         if _tried:
             return _lib
         _tried = True
-        if os.environ.get("PT_NATIVE_PACK", "1") == "0":
-            return None
-        path = _build()
         if path is None:
             return None
         try:

@@ -4,7 +4,7 @@
 // Python list of sequences into one padded uint8 tensor per side.  The
 // numpy formulation (join + boolean-mask scatter) costs ~6 ms per side
 // per 8192 pairs; fused here into one pass of PyBytes header reads +
-// memcpy it is ~50x cheaper.  This is the TPU-native analog of the
+// memcpy it is ~50x cheaper.  This is the analog of the
 // reference's zero-copy CString marshalling into parasail's C kernels
 // (reference src/aligner/mod.rs:397-418: sequences cross the FFI
 // boundary as raw pointers, no per-call re-encoding).

@@ -5,7 +5,7 @@
 // parasail_result_get_cigar / parasail_cigar_decode / _get_traceback
 // (reference: src/alignment/mod.rs:310-419).  The per-pair walk is
 // inherently sequential (O(alignment length) pointer chasing), so it runs
-// on the host over the int8 flag planes the TPU kernels emit; this
+// on the host over the int8 flag planes the device fills emit; this
 // implementation batches many pairs per call to amortize the FFI
 // boundary.
 //

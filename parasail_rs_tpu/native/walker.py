@@ -84,11 +84,16 @@ def _build() -> str | None:
 
 def _load():
     global _lib, _tried
+    if _tried:
+        return _lib
+    # build outside the lock: _build() renames atomically, so concurrent
+    # builders are harmless, and a fork() during the g++ subprocess
+    # never inherits a held lock
+    path = _build()
     with _lock:
         if _tried:
             return _lib
         _tried = True
-        path = _build()
         if path is None:
             return None
         try:

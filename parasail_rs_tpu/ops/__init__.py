@@ -1,7 +1,6 @@
-"""Device kernels: batched wavefront DP fill (XLA + Pallas paths)."""
+"""Device kernels: the GPU DP fill (Pallas) and the XLA wavefront."""
 
 from .specs import MODES, OUTPUTS, STRATEGIES, WIDTHS, KernelKey
-from .scan_kernel import scan_fits, scan_score_align
 from .wavefront import wavefront_align
 
 __all__ = [
@@ -11,6 +10,4 @@ __all__ = [
     "STRATEGIES",
     "WIDTHS",
     "wavefront_align",
-    "scan_fits",
-    "scan_score_align",
 ]

@@ -27,7 +27,7 @@ class KernelKey:
     mode: str = "nw"                 # nw | sg | sw
     free: tuple[bool, bool, bool, bool] = (False, False, False, False)  # qb, qe, db, de
     outputs: str = "score"           # one of OUTPUTS
-    strategy: str = "striped"        # accepted + reported; one TPU wavefront serves all
+    strategy: str = "striped"        # accepted + reported; one device fill serves all
     profile: bool = False
     width: str = "sat"
 

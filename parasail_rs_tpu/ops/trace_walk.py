@@ -1,31 +1,20 @@
 """Device-side batched traceback walk over trace-flag planes.
 
 The reference extracts CIGARs by a per-pair sequential host walk through
-the trace table (parasail_result_get_cigar,
-/root/reference/src/alignment/mod.rs:390-419).  Shipping the full
-(B, Qp, Rp) int8 flag plane to the host first costs B*Qp*Rp bytes of
-device->host transfer — 13 MB for 512 sg pairs at 160x160, hundreds of
-ms through a degraded channel — to feed a walk that only reads
+the trace table (parasail_result_get_cigar, src/alignment/mod.rs:390-419).
+Shipping the full (B, Qp, Rp) int8 flag plane to the host first costs
+B*Qp*Rp bytes of device->host transfer to feed a walk that only reads
 O(qlen+rlen) cells per pair.  This module walks ON DEVICE instead: one
 ``lax.scan`` of Qp+Rp steps carries (i, j, state) for every pair in the
 batch and gathers exactly the flag byte each pair's walk visits,
-emitting compact per-step opcodes.  The host then fetches
-B*(Qp+Rp) bytes (~80x less) and run-length encodes.
+emitting compact per-step opcodes.  The host then fetches B*(Qp+Rp)
+bytes (~80x less than the plane) and run-length encodes.
 
 Semantics are bit-identical to golden.model.walk_trace (the affine
 three-state machine H/E/F with parasail's flag encoding,
 reference trace flags src/alignment/table.rs:127-142), including the
 local-mode ZERO stop and the non-local boundary gap runs for penalized
 (non-free) leading gaps.
-
-Measured (tools/probe_walk.py, v5e): the 320-step walk over 512 pairs
-runs in ~0.1-0.2 ms — the flag gathers vectorize cleanly — so the walk
-is free next to the transfer it removes.
-
-The walk is a sequential scan of Qp+Rp steps: beyond the TPU runtime's
-safe sequential-scan span (see dispatch.WAVEFRONT_TPU_MAX_SPAN) callers
-must use the host walker instead (``Aligner.cigars``); the engine gates
-this automatically.
 """
 
 from __future__ import annotations
@@ -78,49 +67,7 @@ def device_walk(trace, qidx, ridx, end_q, end_r, mode: str,
     return fn(trace, qidx, ridx, end_q, end_r)
 
 
-_STATS_WALK_JIT = {}
-
-
-def device_walk_stats(trace, qidx, ridx, sub, end_q, end_r, mode: str,
-                      free: tuple[bool, bool, bool, bool]):
-    """Accumulate golden's end-cell stats along the traceback path.
-
-    Golden's ``matches`` / ``similar`` / ``length`` accumulators follow
-    the SAME tie decisions the trace flags encode (golden/model.py: the
-    payload branches and the flag branches are the same comparisons),
-    so the stats at the end cell equal the counts along the flag walk:
-    matches = diagonal steps with equal mapped letters, similar =
-    diagonal steps with substitution score > 0, length = every step
-    including penalized boundary gap runs.  This serves the
-    ``gap_open <= gap_extend`` stats regime on device — the one-pass
-    stats kernel cannot (the value ties route payloads through a
-    diag-vs-F comparison its argmax never observes), but the VALUE
-    planes and trace flags are exact for every penalty pair, and the
-    walk is just a reader of those exact flags.
-
-    ``sub`` supplies the substitution scores for the `similar` count:
-    an (A, A) table (square matrices — gathered at (qc, rc)) or a
-    (B or 1, Qp, A) profile-row block (PSSM / profile batches —
-    gathered at (i, rc)).
-
-    Returns (matches, similar, length) int32 (B,) device arrays.
-    """
-    import jax
-
-    B, Qp, Rp = trace.shape
-    local = mode == "sw"
-    qb, _qe, db, _de = (True,) * 4 if local else free
-    key = (Qp, Rp, local, qb, db, sub.ndim)
-    fn = _STATS_WALK_JIT.get(key)
-    if fn is None:
-        fn = _STATS_WALK_JIT[key] = jax.jit(
-            lambda t, q, r, s, ei, ej: _walk_impl(
-                t, q, r, ei, ej, Qp, Rp, local, qb, db, sub=s))
-    return fn(trace, qidx, ridx, sub, end_q, end_r)
-
-
-def _walk_impl(trace, qidx, ridx, end_q, end_r, Qp, Rp, local, qb, db,
-               sub=None):
+def _walk_impl(trace, qidx, ridx, end_q, end_r, Qp, Rp, local, qb, db):
     import jax
     import jax.numpy as jnp
 
@@ -130,15 +77,9 @@ def _walk_impl(trace, qidx, ridx, end_q, end_r, Qp, Rp, local, qb, db,
     qidx = jnp.broadcast_to(qidx, (B, Qp))
     barange = jnp.arange(B)
     i32 = jnp.int32
-    want_stats = sub is not None
-    if want_stats and sub.ndim == 3:
-        prof = jnp.broadcast_to(sub, (B, Qp, sub.shape[2]))
 
     def step(carry, _):
-        if want_stats:
-            i, j, state, cm, cs, cl = carry
-        else:
-            i, j, state = carry
+        i, j, state = carry
         ii = jnp.clip(i, 0, Qp - 1)
         jj = jnp.clip(j, 0, Rp - 1)
         t = tflat[barange, ii * Rp + jj].astype(i32)
@@ -203,31 +144,10 @@ def _walk_impl(trace, qidx, ridx, end_q, end_r, Qp, Rp, local, qb, db,
         dj = jnp.where(live, dj, jnp.where(del_tail, 1, 0))
 
         nc = ((i - di).astype(i32), (j - dj).astype(i32), ns.astype(i32))
-        if want_stats:
-            # golden accumulators along the path: matches = diagonal
-            # steps with equal mapped letters, similar = diagonal steps
-            # with substitution score > 0, length = every step
-            # (golden/model.py Hm/Hs/Hl updates)
-            diag_step = (op == OP_EQ) | (op == OP_X)
-            if sub.ndim == 2:
-                sv = sub[jnp.clip(qc, 0, sub.shape[0] - 1), rc]
-            else:
-                sv = prof[barange, ii, rc]
-            nc = nc + ((cm + (op == OP_EQ)).astype(i32),
-                       (cs + (diag_step & (sv > 0))).astype(i32),
-                       (cl + (op != OP_NONE)).astype(i32))
         return nc, op.astype(jnp.uint8)
 
     init = (jnp.asarray(end_q, i32), jnp.asarray(end_r, i32),
             jnp.zeros(B, i32))
-    # scan unroll > 1 measured 36 ms vs 0.1 ms at unroll=1 on v5e
-    # (tools/probe_walk_unroll.py, 512 pairs x 320 steps — the unrolled
-    # body relayouts the carry); keep the plain scan
-    if want_stats:
-        init = init + (jnp.zeros(B, i32),) * 3
-        (fi, fj, _, m, s, length), _ops = jax.lax.scan(
-            step, init, None, length=L)
-        return m, s, length
     (fi, fj, _), ops = jax.lax.scan(step, init, None, length=L)
     return ops.T, fi + 1, fj + 1
 
@@ -259,7 +179,7 @@ def ops_to_runs_flat(ops: np.ndarray, merge_m: bool = False
     ops_to_runs(row, merge_m).  The per-pair loop costs ~16 us/pair of
     numpy call overhead (8+ ms for a 512-pair batch, dwarfing the
     <1 ms of actual work), which matters on the align_cigars serving
-    path (VERDICT r3 item 4).
+    path.
 
     The native single-pass encoder (native/ptwalk.cc::pt_rle_ops,
     OpenMP) serves this when built — the numpy formulation below costs

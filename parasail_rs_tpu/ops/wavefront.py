@@ -1,30 +1,30 @@
 """Batched anti-diagonal wavefront DP fill (XLA path).
 
-This is the TPU-native reformulation of parasail's kernel matrix
+This is the plain-XLA reformulation of parasail's kernel matrix
 (reference L4: the ``{nw,sg*,sw} x {outputs} x {striped,scan,diag}``
 C kernels, SURVEY.md §2.2).  parasail vectorises ONE pair across SIMD
-lanes with three different strategies; on TPU the profitable mapping is
-the opposite: many pairs ride the vector lanes and each pair is swept
-anti-diagonally, because cells on one anti-diagonal of the affine-gap
-recurrence have no intra-step dependency at all:
+lanes with three different strategies; here many pairs ride the vector
+lanes and each pair is swept anti-diagonally, because cells on one
+anti-diagonal of the affine-gap recurrence have no intra-step
+dependency at all:
 
     E[i,j] = max(H[i-1,j] - open, E[i-1,j] - ext)    (vertical,  diag d-1)
     F[i,j] = max(H[i,j-1] - open, F[i,j-1] - ext)    (horizontal, diag d-1)
     H[i,j] = max(H[i-1,j-1] + S[i,j], E[i,j], F[i,j])   (diag d-2)
 
-so a whole (B, Q) slab updates per step with pure element-wise VPU work.
+so a whole (B, Q) slab updates per step with pure element-wise work.
 The striped/scan/diag knob therefore collapses to one formulation; the
 engine still records and reports the requested strategy flag
 (reference predicates: src/alignment/mod.rs:448-460).
 
 All variants are computed in int32; narrow widths (8/16) are emulated
 bit-faithfully by saturation *detection* (per-pair ``saturated`` flags)
-with the engine re-running saturated pairs wider — the TPU replacement
-for parasail's 8->16 retry ladder (src/aligner/mod.rs:125-126).
+in one pass — the replacement for parasail's 8->16 retry ladder
+(src/aligner/mod.rs:125-126).
 
-This module is the correctness-first XLA path used for every output class;
-`scan_kernel.py` provides the speed-of-light Pallas paths and is
-verified against this (which is itself verified against the golden model).
+This module serves every output class at any shape and is verified
+against the golden model; the GPU kernel (ops/gpu_fill.py) serves the
+short-pair score/stats/trace classes and is verified against both.
 """
 
 from __future__ import annotations
@@ -86,7 +86,7 @@ def wavefront_align(
     - rowcol:   ``score_row`` (B,Rp) / ``score_col`` (B,Qp) (+ stats rows/cols)
     - trace:    ``trace_table`` (B,Qp,Rp) int8 flags
 
-    Width semantics (the TPU replacement for parasail's retry ladder,
+    Width semantics (the replacement for parasail's retry ladder,
     reference src/aligner/mod.rs:125-126): scores are always exact int32;
     ``"8"``/``"16"`` flag pairs whose H would overflow that integer width,
     ``"sat"`` detects both thresholds in ONE pass — ``saturated`` reports

@@ -27,7 +27,7 @@ def length_bucket(n: int, *, minimum: int = 16) -> int:
     Buckets lengths to {16, 24, 32, 48, 64, 96, 128, 192, 256, 384, ...}
     — powers of two interleaved with 1.5x powers of two — so jit caches a
     small number of shapes while keeping padding waste under ~33%.  Every
-    bucket is a multiple of 8 (int32 sublane tile).
+    bucket is a multiple of 8 (the GPU kernel's query strip).
     """
     if n <= minimum:
         return minimum

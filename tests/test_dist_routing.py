@@ -1,11 +1,9 @@
-"""Sharded dispatch must route through the production Pallas scan kernel.
+"""Sharded dispatch routes through the same fills as one device.
 
-The reference's hot loop is the kernel itself (src/aligner/mod.rs:397-452);
-a sharded execution that only runs the debug wavefront would scale the
-wrong thing.  These tests run both routes of dist.sharded over the
-8-virtual-device CPU mesh (scan in interpret mode) and pin: bit-equality
-with golden, shared-profile (leading dim 1) replication, internal padding
-of odd batch sizes, and the route-planning gates themselves.
+These tests run both routes of dist.sharded over the 8-virtual-device
+CPU mesh (the GPU kernel in interpret mode) and pin: bit-equality with
+golden, shared-profile (leading dim 1) replication, internal padding of
+odd batch sizes, and the route decision itself.
 """
 
 import numpy as np
@@ -39,7 +37,7 @@ def _pairs(rng, m, B, lo=4, hi=14):
 
 
 @pytest.mark.parametrize("outputs", ["score", "stats"])
-@pytest.mark.parametrize("route", ["scan", "wavefront"])
+@pytest.mark.parametrize("route", ["kernel", "wavefront"])
 def test_sharded_routes_match_golden(outputs, route):
     m = Matrix.from_name("blosum62")
     rng = np.random.default_rng(11)
@@ -48,7 +46,7 @@ def test_sharded_routes_match_golden(outputs, route):
     out = sharded_align(
         MESH, batch.profile, batch.qidx, batch.ridx, batch.qlen, batch.rlen,
         open_=10, ext=1, mode="sw", free=(True,) * 4, outputs=outputs,
-        width="sat", route=route)
+        width="sat", route=route, interpret=True)
     host = gather_scores(out)
     assert host["score"].shape[0] == B
     for b in range(B):
@@ -61,7 +59,8 @@ def test_sharded_routes_match_golden(outputs, route):
 
 
 def test_sharded_scan_odd_batch_padded_internally():
-    """A batch that divides neither the mesh nor the 128-lane unit."""
+    """A batch that divides neither the mesh nor the kernel's lane
+    block."""
     m = Matrix.from_name("blosum62")
     rng = np.random.default_rng(13)
     B = 19
@@ -69,7 +68,7 @@ def test_sharded_scan_odd_batch_padded_internally():
     out = sharded_align(
         MESH, batch.profile, batch.qidx, batch.ridx, batch.qlen, batch.rlen,
         open_=10, ext=1, mode="nw", free=(False,) * 4, outputs="score",
-        route="scan")
+        route="kernel", interpret=True)
     host = gather_scores(out)
     assert host["score"].shape[0] == B
     for b in (0, 7, B - 1):
@@ -100,11 +99,11 @@ def test_sharded_shared_profile_replicated():
         rlen[b] = len(ri)
     qlen = np.full(B, len(qi), np.int32)
 
-    for route in ("scan", "wavefront"):
+    for route in ("kernel", "wavefront"):
         out = sharded_align(
             MESH, profile, qidx, ridx, qlen, rlen,
             open_=10, ext=1, mode="sw", free=(True,) * 4, outputs="score",
-            route=route)
+            route=route, interpret=True)
         host = gather_scores(out)
         for b in range(B):
             g = golden.align_seqs(q, refs[b], m, 10, 1, "sw")
@@ -112,46 +111,38 @@ def test_sharded_shared_profile_replicated():
 
 
 def test_plan_sharded_route_gates():
-    vals = np.arange(-4, 12, dtype=np.int32)
-    common = dict(score_values=vals, Qp=256, Rp=256, shard_batch=128)
-    # production config on TPU -> scan; on CPU the backend gate applies
-    import jax
-    expected = "scan" if jax.default_backend() == "tpu" else "wavefront"
-    assert plan_sharded_route(
-        outputs="score", gap_open=11, gap_extend=1, **common) == expected
-    # scan exactness gates route away regardless of backend
-    assert plan_sharded_route(
-        outputs="score", gap_open=1, gap_extend=2, **common) == "wavefront"
-    assert plan_sharded_route(
-        outputs="stats", gap_open=4, gap_extend=4, **common) == "wavefront"
-    big = np.array([-300, 300], np.int32)
-    assert plan_sharded_route(
-        outputs="score", gap_open=11, gap_extend=1, score_values=big,
-        Qp=256, Rp=256, shard_batch=128) == "wavefront"
+    """The sharded route is the engine's own decision."""
+    from parasail_rs_tpu.engine.dispatch import choose_route
+
+    for outputs, qp, rp in [("score", 256, 256), ("stats", 192, 16384),
+                            ("trace", 64, 64), ("table", 16, 16),
+                            ("score", 512, 64)]:
+        for platform in ("gpu", "cpu"):
+            assert plan_sharded_route(
+                outputs=outputs, Qp=qp, Rp=rp, platform=platform) == \
+                choose_route(outputs, qp, rp, platform=platform)[0]
+    assert plan_sharded_route(outputs="score", Qp=256, Rp=256,
+                              platform="gpu") == "kernel"
+    assert plan_sharded_route(outputs="score", Qp=256, Rp=256,
+                              platform="cpu") == "wavefront"
+    assert plan_sharded_route(outputs="stats", Qp=512, Rp=64,
+                              platform="gpu") == "wavefront"
 
 
 @pytest.mark.parametrize("open_,ext,mode", [(1, 3, "sw"), (2, 2, "nw"),
                                             (0, 1, "sg")])
-def test_sharded_trace_walk_stats_open_le_ext(open_, ext, mode,
-                                              monkeypatch):
-    """Stats at gap_open <= gap_extend run the per-shard trace+walk route
-    under shard_map (the single-chip trace_walk route, data-parallel) —
-    bit-exact vs golden on the 8-device mesh."""
-    monkeypatch.setenv("PT_FORCE_PALLAS", "1")
+def test_sharded_trace_walk_stats_open_le_ext(open_, ext, mode):
+    """Stats at gap_open <= gap_extend on the per-shard kernel under
+    shard_map — bit-exact vs golden on the 8-device mesh."""
     m = Matrix.from_name("blosum62")
     rng = np.random.default_rng(29)
     B = 16
     pairs, batch = _pairs(rng, m, B)
     free = golden.free_flags(mode)
-    route = plan_sharded_route(
-        outputs="stats", gap_open=open_, gap_extend=ext,
-        score_values=batch.profile, Qp=batch.qp, Rp=batch.rp,
-        shard_batch=128)
-    assert route == "trace_walk"
     out = sharded_align(
         MESH, batch.profile, batch.qidx, batch.ridx, batch.qlen,
         batch.rlen, open_=open_, ext=ext, mode=mode, free=free,
-        outputs="stats", width="sat", route="auto")
+        outputs="stats", width="sat", route="kernel", interpret=True)
     host = gather_scores(out)
     for b in range(B):
         g = golden.align_seqs(*pairs[b], m, open_, ext, mode)

@@ -2,7 +2,7 @@
 
 Mirrors the reference's single-tier test strategy — every test in
 reference tests/test_parasail.rs has an analog here with the same
-sequences and arithmetic expectations (SURVEY.md §4), plus TPU-build
+sequences and arithmetic expectations (SURVEY.md §4), plus batch-API
 extras (error guards, saturation flags, batch API).
 """
 
@@ -353,7 +353,7 @@ def test_ssw_profile_reuses_tensors_and_matches_query_path():
         assert p.cigar_string() == r.cigar_string()
 
 
-# -- TPU-build extras --------------------------------------------------------
+# -- batch-API extras --------------------------------------------------------
 def test_error_guards():
     result = Aligner.new().build().align(b"ACGT", b"ACGT")
     with pytest.raises(errors.NoStats):

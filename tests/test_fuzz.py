@@ -1,10 +1,8 @@
 """Randomized engine-level fuzzing vs the golden oracle.
 
-Sweeps gap-penalty regimes that exercise different dispatch routes —
-open > ext (every output class Pallas-eligible), open <= ext (value
-outputs stay on the scan route via the min(open, ext) slope; stats run
-the trace+device-walk route) — plus degenerate lengths, all through
-the public API.  Also fuzzes align_cigars (the device traceback walk)
+Sweeps gap-penalty regimes — open > ext, open == ext and open < ext,
+where golden's gap-restart tie rules decide stats and trace flags — plus
+degenerate lengths, all through the public API.  Also fuzzes align_cigars (the device traceback walk)
 against per-pair get_cigar for every mode and regime.
 """
 
@@ -153,11 +151,10 @@ def test_fuzz_align_cigars_all_modes(open_, ext):
 
 
 def test_fuzz_stats_walk_route_widths():
-    """Stats at open <= ext via the trace_walk route across solution
-    widths (the width knob only affects saturation flags; counts stay
-    golden-exact)."""
-    import os
-    import unittest.mock as umock
+    """Stats at open <= ext across solution widths (the width knob only
+    affects saturation flags; counts stay golden-exact), on the public
+    route and on the kernel route."""
+    from parasail_rs_tpu.engine.dispatch import _execute_kernel
 
     rng = np.random.default_rng(404)
     m = Matrix.create(b"ACGT", 3, -2)
@@ -170,10 +167,16 @@ def test_fuzz_stats_walk_route_widths():
     for width in ("sat", 8, 16, 32, 64):
         al = (Aligner.new().matrix(m).gap_open(2).gap_extend(3)
               .solution_width(width).use_stats().local().build())
-        with umock.patch.dict(os.environ, {"PT_FORCE_PALLAS": "1"}):
-            res = al.align_batch(qs, rs)
-        for a, q, r in zip(res, qs, rs):
+        res = al.align_batch(qs, rs)
+        batch, _, _ = al._pack(qs, rs)
+        kw = {"64": "32"}.get(str(width), str(width))
+        out = _execute_kernel(batch, gap_open=2, gap_extend=3, mode="sw",
+                              free=(True,) * 4, width=kw, outputs="stats",
+                              interpret=True)
+        for b, (a, q, r) in enumerate(zip(res, qs, rs)):
             g = golden.align_seqs(q, r, m, 2, 3, "sw")
+            want = (g.score, g.matches, g.similar, g.length)
             assert (a.get_score(), a.get_matches(), a.get_similar(),
-                    a.get_length()) == (g.score, g.matches, g.similar,
-                                        g.length), (width, q, r)
+                    a.get_length()) == want, (width, q, r)
+            assert tuple(int(out[k][b]) for k in (
+                "score", "matches", "similar", "length")) == want

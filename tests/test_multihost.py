@@ -1,7 +1,7 @@
 """Multi-host data parallelism, simulated with 2 CPU processes.
 
 The reference has nothing distributed to test (SURVEY.md §4); the
-TPU-build strategy is multi-process CPU simulation: two processes join a
+strategy here is multi-process CPU simulation: two processes join a
 jax.distributed group (4 virtual devices each -> an 8-device global
 mesh), each feeds its half of a pair batch, and both must see the full,
 golden-exact result set.
@@ -11,8 +11,6 @@ import os
 import socket
 import subprocess
 import sys
-
-import pytest
 
 WORKER = r"""
 import os, sys
@@ -59,23 +57,20 @@ for b in (0, 5, B - 1):
     assert out["score"][b] == g.score, (b, out["score"][b], g.score)
     assert out["matches"][b] == g.matches
 
-# The production TPU route: the same Pallas scan kernel the single-chip
-# engine dispatches, sharded over the global mesh (interpret-mode here).
-# Each host's half is padded internally to the 128-lane granularity.
+# The GPU kernel route the single-device engine dispatches, sharded over
+# the global mesh (through the Pallas interpreter here).
 out_scan = multihost.align_global(
     mesh,
     batch.profile[sl], batch.qidx[sl], batch.ridx[sl],
     batch.qlen[sl], batch.rlen[sl],
     open_=11, ext=1, mode="sw", free=(True,)*4, outputs="stats",
-    route="scan")
+    route="kernel", interpret=True)
 for k in ("score", "matches", "similar", "length"):
     assert (out_scan[k] == out[k]).all(), (k, out_scan[k], out[k])
 print(f"proc {pid} OK")
 """
 
 
-@pytest.mark.skipif(os.environ.get("PT_TEST_BACKEND") == "tpu",
-                    reason="CPU-simulation test")
 def test_two_process_data_parallel(tmp_path):
     with socket.socket() as s:
         s.bind(("localhost", 0))

@@ -1,9 +1,9 @@
 """Exact-NCBI-matrix registration and the approximate/slow-path signals.
 
-Covers VERDICT r1 items 3 and 7: registered NCBI data must resolve with
-``approximate=False`` and override synthesis; synthesised builtins must
-be loud (Aligner build warning, result property); and batches falling
-off the Pallas route must be logged and counted with a reason.
+Registered NCBI data must resolve with ``approximate=False`` and
+override synthesis; synthesised builtins must be loud (Aligner build
+warning, result property); and batches falling off the kernel route must
+be logged and counted with a reason.
 """
 
 import logging
@@ -13,7 +13,7 @@ import pytest
 
 from parasail_rs_tpu.engine import Aligner
 from parasail_rs_tpu.engine.dispatch import (
-    ROUTE_COUNTS, pack_pairs, plan_route)
+    ROUTE_COUNTS, choose_route, pack_pairs, plan_route)
 from parasail_rs_tpu.matrices import (
     Matrix, register_exact, register_ncbi_dir)
 from parasail_rs_tpu.matrices import data as mdata
@@ -125,25 +125,24 @@ def test_result_matrix_approximate_property(clean_registry):
 def test_plan_route_reports_reasons():
     m = Matrix.from_name("blosum62")
     batch, _, _ = pack_pairs(m, [b"ARND"], [b"ARND"])
-    # open < ext serves value outputs on the scan route (slope
-    # min(open, ext)); off-TPU the disqualifier is the backend
-    route, reason = plan_route(batch, "score", 1, 2)
+    # without a GPU the disqualifier is the backend
+    route, reason = plan_route(batch, "score")
     assert route == "wavefront"
     assert "backend is" in reason
-    # stats at open <= ext: payload tie semantics
-    route, reason = plan_route(batch, "stats", 3, 3)
+    # on a GPU: output classes and shapes beyond the kernel say so
+    route, reason = choose_route("table", 16, 16, platform="gpu")
     assert route == "wavefront"
-    assert "tie semantics" in reason
-    route, reason = plan_route(batch, "stats", 1, 2)
+    assert "no kernel for table at 16x16" in reason
+    route, reason = choose_route("stats", 512, 16, platform="gpu")
     assert route == "wavefront"
-    assert "tie semantics" in reason
+    assert "512x16" in reason
+    assert choose_route("stats", batch.qp, batch.rp,
+                        platform="gpu") == ("kernel", "")
 
 
 def test_aligner_route_counter_and_log(caplog):
-    import jax
-
     m = Matrix.from_name("blosum62")
-    # stats at open <= ext forces the fallback regardless of backend
+    # without a GPU every batch lands on the wavefront, with a reason
     a = (Aligner.new().matrix(m).gap_open(1).gap_extend(2).local()
          .use_stats().build())
     before = sum(ROUTE_COUNTS.values())
@@ -151,8 +150,8 @@ def test_aligner_route_counter_and_log(caplog):
         a.align(b"ARNDARND", b"ARNDCARND")
     assert sum(a.route_counter.values()) == 1
     (route, reason), = a.route_counter.keys()
-    assert route in ("wavefront", "stream")
-    assert "tie semantics" in reason
+    assert route == "wavefront"
+    assert "backend is" in reason
     assert sum(ROUTE_COUNTS.values()) == before + 1
     assert any("routed to" in r.message for r in caplog.records)
 

@@ -81,7 +81,7 @@ def test_align_cigars_sg_free_variants(qgaps, dgaps):
 
 
 def test_align_cigars_open_below_extend():
-    # gap_open < gap_extend: value planes run the scan-route slope form
+    # gap_open < gap_extend: golden's gap-restart tie rules
     qs = _seqs(DNA, 8, 6, 30)
     rs = _seqs(DNA, 8, 6, 30)
     _check(lambda: Aligner.new().gap_open(1).gap_extend(5), qs, rs)
@@ -154,12 +154,8 @@ def test_ops_to_runs_merge_m():
 
 
 # ---------------------------------------------------------------------------
-# Stats at gap_open <= gap_extend on the device route (trace flags + walk)
+# Stats at gap_open <= gap_extend through the public device route
 # ---------------------------------------------------------------------------
-import os
-import unittest.mock as umock
-
-from parasail_rs_tpu.engine import dispatch as disp
 from parasail_rs_tpu.golden import align_seqs
 
 
@@ -172,21 +168,15 @@ def _golden_stats(q, r, m, open_, ext, mode, free=None):
                                        (2, 2)])
 @pytest.mark.parametrize("mode", ["nw", "sw", "sg"])
 def test_stats_open_le_ext_device_route(open_, ext, mode):
-    """The open <= ext stats regime runs the trace+walk device route and
-    matches golden exactly — the 'tie semantics' wavefront fallback is
-    gone for on-envelope shapes (VERDICT r3 item 5)."""
+    """The open <= ext stats regime matches golden exactly on the
+    device route (golden's gap-restart tie rules included)."""
     qs = _seqs(DNA, 6, 4, 28)
     rs = _seqs(DNA, 6, 4, 28)
     b = Aligner.new().gap_open(open_).gap_extend(ext).use_stats()
     b = {"nw": b.global_, "sw": b.local, "sg": b.semi_global}[mode]()
     al = b.build()
     m = al.matrix
-    with umock.patch.dict(os.environ, {"PT_FORCE_PALLAS": "1"}):
-        batch, _, _ = al._pack(qs, rs)
-        route, reason = disp.plan_route(batch, "stats", open_, ext)
-        assert route == "trace_walk"
-        assert "tie semantics" not in reason
-        res = al.align_batch(qs, rs)
+    res = al.align_batch(qs, rs)
     for a, q, r in zip(res, qs, rs):
         score, eq, er, mm, ss, ll = _golden_stats(q, r, m, open_, ext, mode)
         assert a.get_score() == score
@@ -204,8 +194,7 @@ def test_stats_open_le_ext_sg_free_variants():
         al = (Aligner.new().semi_global().allow_query_gaps(qg)
               .allow_ref_gaps(dg).gap_open(1).gap_extend(4)
               .use_stats().build())
-        with umock.patch.dict(os.environ, {"PT_FORCE_PALLAS": "1"}):
-            res = al.align_batch(qs, rs)
+        res = al.align_batch(qs, rs)
         from parasail_rs_tpu.golden.model import free_flags
 
         free = free_flags("sg", qg, dg)
@@ -217,7 +206,7 @@ def test_stats_open_le_ext_sg_free_variants():
 
 
 def test_stats_open_le_ext_blosum_profile():
-    """PSSM-free profile batches (shared query) on the walk route."""
+    """Shared-query profile batches at open < ext."""
     from parasail_rs_tpu.engine import Profile
 
     m = Matrix.from_name("blosum62")
@@ -226,22 +215,11 @@ def test_stats_open_le_ext_blosum_profile():
     prof = Profile.new(q, True, m)
     al = (Aligner.new().profile(prof).gap_open(1).gap_extend(2).local()
           .build())
-    with umock.patch.dict(os.environ, {"PT_FORCE_PALLAS": "1"}):
-        res = al.align_batch(None, rs)
+    res = al.align_batch(None, rs)
     for a, r in zip(res, rs):
         score, eq, er, mm, ss, ll = _golden_stats(q, r, m, 1, 2, "sw")
         assert (a.get_score(), a.get_matches(), a.get_similar(),
                 a.get_length()) == (score, mm, ss, ll)
-
-
-def test_stats_open_gt_ext_still_one_pass():
-    """The strict open > ext regime keeps the one-pass stats kernel."""
-    al = (Aligner.new().gap_open(5).gap_extend(2).use_stats().local()
-          .build())
-    with umock.patch.dict(os.environ, {"PT_FORCE_PALLAS": "1"}):
-        batch, _, _ = al._pack([b"ACGT"], [b"ACGT"])
-        route, _ = disp.plan_route(batch, "stats", 5, 2)
-    assert route == "pallas"
 
 
 def test_align_cigars_mixed_case_matches_get_cigar():
@@ -258,17 +236,14 @@ def test_align_cigars_mixed_case_matches_get_cigar():
     assert cigs == [want]
     # stats keep the mapped-index semantics: these ARE matches
     st = (Aligner.new().gap_open(1).gap_extend(2).use_stats().build())
-    import unittest.mock as m2
-    with m2.patch.dict(os.environ, {"PT_FORCE_PALLAS": "1"}):
-        a = st.align(q, r)
-    assert a.get_matches() == 4
+    assert st.align(q, r).get_matches() == 4
 
 
 def test_stats_walk_per_pair_profile_batch():
-    """Per-pair (B, Qp, A) profile batches (build_batch, B not
-    lane-padded) run the trace_walk stats route without shape errors
-    (regression: the sub plane was not padded to the Pallas batch dim)."""
-    from parasail_rs_tpu.engine.dispatch import build_batch, execute
+    """Per-pair (B, Qp, A) profile batches (build_batch) run stats at
+    open < ext exactly, on the wavefront and on the kernel route."""
+    from parasail_rs_tpu.engine.dispatch import (
+        _execute_kernel, build_batch, execute)
     from parasail_rs_tpu.engine.profile import profile_rows
     from parasail_rs_tpu.golden import model as golden
 
@@ -278,20 +253,20 @@ def test_stats_walk_per_pair_profile_batch():
     prows = [profile_rows(m, m.encode(q)) for q in qs]
     batch = build_batch(prows, [m.encode(q) for q in qs],
                         [m.encode(r) for r in rs])
-    with umock.patch.dict(os.environ, {"PT_FORCE_PALLAS": "1"}):
-        out = execute(batch, gap_open=1, gap_extend=3, mode="sw",
-                      free=(True,) * 4, outputs="stats", width="sat")
-    for b in range(3):
-        g = golden.align_seqs(qs[b], rs[b], m, 1, 3, "sw")
-        assert int(out["matches"][b]) == g.matches
-        assert int(out["length"][b]) == g.length
+    kw = dict(gap_open=1, gap_extend=3, mode="sw", free=(True,) * 4,
+              outputs="stats", width="sat")
+    for out in (execute(batch, **kw),
+                _execute_kernel(batch, interpret=True, **kw)):
+        for b in range(3):
+            g = golden.align_seqs(qs[b], rs[b], m, 1, 3, "sw")
+            assert int(out["matches"][b]) == g.matches
+            assert int(out["similar"][b]) == g.similar
+            assert int(out["length"][b]) == g.length
 
 
-def test_align_cigars_fallback_contract(monkeypatch):
-    """Off-envelope batches (host-walk fallback) return the SAME
-    score-class Alignments as the device path: is_trace() False, no
-    plane retained, identical CIGARs."""
-    monkeypatch.setattr(disp, "WAVEFRONT_TPU_MAX_SPAN", 8)
+def test_align_cigars_result_contract():
+    """align_cigars returns score-class Alignments: is_trace() False, no
+    plane retained, CIGARs identical to the trace-plane walk."""
     qs = _seqs(DNA, 3, 6, 12)
     rs = _seqs(DNA, 3, 6, 12)
     fast = Aligner.new().gap_open(5).gap_extend(2).local().build()
@@ -304,21 +279,6 @@ def test_align_cigars_fallback_contract(monkeypatch):
         assert not a.is_trace()
         with pytest.raises(Exception):
             a.get_trace_table()
-
-
-def test_sharded_trace_walk_honors_span_valve(monkeypatch):
-    """plan_sharded_route's trace_walk gate follows the engine's
-    sequential-scan valve, not a hardcoded span."""
-    from parasail_rs_tpu.dist.sharded import plan_sharded_route
-    from parasail_rs_tpu.engine import dispatch as d2
-
-    monkeypatch.setenv("PT_FORCE_PALLAS", "1")
-    vals = np.zeros((5, 5), np.int32)
-    kw = dict(outputs="stats", gap_open=1, gap_extend=3,
-              score_values=vals, Qp=16, Rp=16, shard_batch=128)
-    assert plan_sharded_route(**kw) == "trace_walk"
-    monkeypatch.setattr(d2, "WAVEFRONT_TPU_MAX_SPAN", 16)
-    assert plan_sharded_route(**kw) == "wavefront"
 
 
 def test_align_cigars_mixed_lengths_binned():
@@ -338,15 +298,13 @@ def test_align_cigars_mixed_lengths_binned():
 
 
 def test_align_many_stats_open_le_ext_binned():
-    """align_many composes bins with the trace_walk route (stats at
-    open <= ext): fetch_all handles the packed forms, results return in
-    input order, golden-exact."""
+    """align_many composes bins for stats at open <= ext: fetch_all
+    handles the forms, results return in input order, golden-exact."""
     qs = _seqs(DNA, 6, 4, 20) + _seqs(DNA, 6, 100, 200)
     rs = _seqs(DNA, 6, 4, 20) + _seqs(DNA, 6, 100, 200)
     al = (Aligner.new().gap_open(1).gap_extend(3).local().use_stats()
           .build())
-    with umock.patch.dict(os.environ, {"PT_FORCE_PALLAS": "1"}):
-        res = al.align_many(qs, rs)
+    res = al.align_many(qs, rs)
     for a, q, r in zip(res, qs, rs):
         g = align_seqs(q, r, al.matrix, 1, 3, "sw")
         assert (a.get_score(), a.get_matches(), a.get_similar(),
@@ -377,101 +335,9 @@ def test_ops_to_runs_batch_matches_per_pair():
             np.testing.assert_array_equal(g, w)
 
 
-def _walker_available():
-    from parasail_rs_tpu.native import walker
-
-    return walker._load() is not None
-
-
-@pytest.mark.skipif(not _walker_available(),
-                    reason="native walker unavailable")
-def test_stream_walk_stats_golden_exact():
-    """Stats at gap_open <= gap_extend BEYOND the one-shot envelope run
-    the streamed-trace + native-walk route, golden-exact (the former
-    fallback was the host-CPU wavefront)."""
-    import os
-    from parasail_rs_tpu.engine import dispatch as disp
-    from parasail_rs_tpu.golden import model as golden
-    from parasail_rs_tpu.matrices import Matrix
-
-    rng = np.random.default_rng(91)
-    m = Matrix.create(b"ACGT", 2, -3)
-    qs = [rng.choice(list(b"ACGT"), size=35).astype("uint8").tobytes()
-          for _ in range(3)]
-    rs = [rng.choice(list(b"ACGT"),
-                     size=rng.integers(300, 500)).astype("uint8").tobytes()
-          for _ in range(3)]
-    al = (Aligner.new().matrix(m).gap_open(1).gap_extend(3).local()
-          .use_stats().build())
-    batch, qlens, rlens = al._pack(qs, rs)
-    with umock.patch.dict(os.environ, {"PT_STREAM_SEG": "128"}):
-        out = disp._execute_stats_via_stream_walk(
-            batch, gap_open=1, gap_extend=3, mode="sw", free=(True,) * 4,
-            width="sat")
-    for i, (q, r) in enumerate(zip(qs, rs)):
-        g = golden.align_seqs(q, r, m, 1, 3, "sw")
-        got = (int(out["score"][i]), int(out["matches"][i]),
-               int(out["similar"][i]), int(out["length"][i]))
-        assert got == (g.score, g.matches, g.similar, g.length), (i, got)
-
-
-@pytest.mark.skipif(not _walker_available(),
-                    reason="native walker unavailable")
-def test_stream_walk_stats_sg_free_combo():
-    """The stream-walk stats route honors semi-global free-end flags
-    (penalized boundary runs count toward length, as in golden)."""
-    import os
-    from parasail_rs_tpu.engine import dispatch as disp
-    from parasail_rs_tpu.golden import model as golden
-    from parasail_rs_tpu.matrices import Matrix
-
-    rng = np.random.default_rng(17)
-    m = Matrix.create(b"ACGT", 2, -3)
-    free = (True, False, False, True)
-    qs = [rng.choice(list(b"ACGT"), size=30).astype("uint8").tobytes()
-          for _ in range(2)]
-    rs = [rng.choice(list(b"ACGT"), size=350).astype("uint8").tobytes()
-          for _ in range(2)]
-    al = (Aligner.new().matrix(m).gap_open(2).gap_extend(2)
-          .use_stats().build())
-    batch, qlens, rlens = al._pack(qs, rs)
-    with umock.patch.dict(os.environ, {"PT_STREAM_SEG": "128"}):
-        out = disp._execute_stats_via_stream_walk(
-            batch, gap_open=2, gap_extend=2, mode="sg", free=free,
-            width="sat")
-    for i, (q, r) in enumerate(zip(qs, rs)):
-        g = golden.align_seqs(q, r, m, 2, 2, "sg", free)
-        got = (int(out["score"][i]), int(out["matches"][i]),
-               int(out["similar"][i]), int(out["length"][i]))
-        assert got == (g.score, g.matches, g.similar, g.length), (i, got)
-
-
-def test_plan_route_stream_walk_beyond_envelope():
-    """A stats batch at gap_open <= gap_extend too big for the one-shot
-    trace envelope plans the stream_walk route (not the wavefront),
-    when the native walker is available."""
-    import os
-    from parasail_rs_tpu.engine import dispatch as disp
-
-    qs = [b"A" * 150]
-    rs = [b"A" * 16000]
-    al = Aligner.new().gap_open(1).gap_extend(3).local().use_stats().build()
-    batch, _, _ = al._pack(qs, rs)
-    with umock.patch.dict(os.environ, {"PT_FORCE_PALLAS": "1"}):
-        route, reason = disp.plan_route(batch, "stats", 1, 3)
-    if _walker_available():
-        assert route == "stream_walk", (route, reason)
-    else:
-        assert route == "wavefront", (route, reason)
-
-
 def test_align_cigars_chunked_matches_unchunked():
-    """The 512-pair sub-launch pipeline (r5) returns bit-identical
-    results to a single launch covering the whole bin."""
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-    import numpy as np
+    """The 512-pair sub-launch pipeline returns bit-identical results
+    to a single launch covering the whole bin."""
 
     from parasail_rs_tpu.engine import Aligner
     from parasail_rs_tpu.engine.aligner import Aligner as Al

@@ -166,42 +166,3 @@ def test_pssm_profile_path():
     m = Matrix.create(b"ACGT", 2, -1).to_pssm(b"ACGT")
     out = run_batch([(b"ACGT", b"ACGT")], m, 0, 0, "nw", free_flags("nw"), "score")
     assert out["score"][0] == 8
-
-
-def test_wavefront_cpu_valve_for_long_spans(monkeypatch):
-    """_wavefront_exec must move batches past the TPU sequential-scan
-    safety bound onto the host CPU backend (the TPU runtime crashes the
-    worker outright there) and still produce exact results."""
-    import jax
-
-    from parasail_rs_tpu.engine import dispatch
-    from parasail_rs_tpu.engine.dispatch import pack_pairs
-    from parasail_rs_tpu.golden import model as golden
-    from parasail_rs_tpu.matrices import Matrix
-
-    m = Matrix.create(b"ACGT", 2, -3)
-    rng = np.random.default_rng(31)
-    qs = [rng.choice(list(b"ACGT"), size=40).astype("uint8").tobytes()
-          for _ in range(2)]
-    rs = [rng.choice(list(b"ACGT"), size=50).astype("uint8").tobytes()
-          for _ in range(2)]
-    batch, _, _ = pack_pairs(m, qs, rs)
-    # pretend the default backend is TPU and the span exceeds the bound:
-    # the valve must reroute to jax.local_devices(backend="cpu")
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    monkeypatch.setattr(dispatch, "WAVEFRONT_TPU_MAX_SPAN", 16)
-    puts = []
-    orig_put = jax.device_put
-
-    def spy_put(x, device=None):
-        puts.append(device)
-        return orig_put(x, device)
-
-    monkeypatch.setattr(jax, "device_put", spy_put)
-    out = dispatch._wavefront_exec(
-        batch, gap_open=4, gap_extend=1, mode="sw", free=(True,) * 4,
-        outputs="score", width="32")
-    assert puts and all(d.platform == "cpu" for d in puts)
-    for b, (q, r) in enumerate(zip(qs, rs)):
-        g = golden.align_seqs(q, r, m, 4, 1, "sw")
-        assert int(np.asarray(out["score"])[b]) == g.score, b
